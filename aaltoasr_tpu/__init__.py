@@ -1,4 +1,4 @@
-"""aaltoasr_tpu — a TPU-native LVCSR framework with AaltoASR's capabilities.
+"""aaltoasr_tpu — an accelerator-native LVCSR framework with AaltoASR's capabilities.
 
 A from-scratch JAX/XLA/Pallas re-design of the classical HMM/GMM speech
 recognition toolkit AaltoASR (Aku acoustic trainer + token-passing decoder +

@@ -2,7 +2,7 @@
 
 Equivalent of the reference tool (`aku/align.cc:171-347`).  Where the
 reference runs a moving-window Viterbi (window 4000 frames, `align.cc:60`)
-to bound memory, the TPU path runs the dense scan over the whole utterance
+to bound memory, the device path runs the dense scan over the whole utterance
 (the [T, P] lattice fits HBM comfortably; windowing is unnecessary).
 Output lines are ``start_sample end_sample label.state`` with the 16 kHz
 sample convention (`align.cc` print_line: frame * int(16000/frame_rate)).

@@ -3,10 +3,14 @@
 The operational layer of the reference: SLURM/Condor job arrays with
 per-batch failure files and retries (`aku/scripts/ClusterManager.pm:42-
 205` failed_batch_retry_count, `pyrectool/submit-to-{slurm,condor}.sh`,
-train.pl:345-396).  On a TPU host the "array" is local worker processes
+train.pl:345-396).  On one host the "array" is local worker processes
 over the same ``-B/-I`` recipe shards; failures append to
 ``failed_batches.lst`` and failed shards retry up to ``--retries`` times
-— the same protocol, minus the cluster scheduler.
+— the same protocol, minus the cluster scheduler.  Local workers that
+use the GPU each get a card of their own through
+``CUDA_VISIBLE_DEVICES`` (a JAX process reserves most of a card's
+memory, so a second one on the same card fails), and ``-j`` may not
+exceed the number of cards.
 
 Usage: batch_run -B 8 [--retries 2] -- python -m aaltoasr_tpu.cli.stats
        -c cfg -r recipe -o out_{I} -B {B} -I {I}
@@ -19,6 +23,41 @@ import argparse
 import os
 import subprocess
 import sys
+
+
+def visible_cards() -> list:
+    """The GPUs local workers may use: ``CUDA_VISIBLE_DEVICES`` when
+    set, else what ``nvidia-smi -L`` lists, else none."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [c.strip() for c in env.split(",") if c.strip()]
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return [str(i) for i, line in enumerate(
+        ln for ln in out.splitlines() if ln.startswith("GPU "))]
+
+
+def worker_cards(jobs: int) -> list:
+    """Cards to hand out to ``jobs`` concurrent local workers: empty
+    when the workers run on the CPU (``JAX_PLATFORMS=cpu``) or no card
+    is visible; refuses more workers than cards."""
+    if os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
+        return []
+    cards = visible_cards()
+    if cards and jobs > len(cards):
+        raise SystemExit(f"batch_run: -j {jobs} exceeds the {len(cards)} "
+                         "visible GPU(s); one worker per card")
+    return cards
+
+
+def worker_env(card: str | None) -> dict:
+    env = dict(os.environ)
+    if card is not None:
+        env["CUDA_VISIBLE_DEVICES"] = card
+    return env
 
 
 def run_shard(cmd_template, B, I) -> int:
@@ -207,22 +246,28 @@ def main(argv=None) -> int:
     if args.submit == "condor":
         return submit_condor(args, cmd)
 
+    cards = worker_cards(args.jobs)
     pending = list(range(1, args.batches + 1))
     for attempt in range(args.retries + 1):
         failed = []
         running = {}
+        free = list(cards)
         queue = list(pending)
         while queue or running:
             while queue and len(running) < args.jobs:
                 i = queue.pop(0)
                 c = [x.replace("{B}", str(args.batches))
                      .replace("{I}", str(i)) for x in cmd]
-                running[i] = subprocess.Popen(c)
+                card = free.pop(0) if cards else None
+                running[i] = (subprocess.Popen(c, env=worker_env(card)),
+                              card)
             done = []
-            for i, proc in running.items():
+            for i, (proc, card) in running.items():
                 rc = proc.poll()
                 if rc is not None:
                     done.append(i)
+                    if card is not None:
+                        free.append(card)
                     if rc != 0:
                         failed.append(i)
                         print(f"batch {i} failed (rc {rc})",

@@ -5,7 +5,7 @@ Default mode mirrors the reference's diagonal KL k-means exactly
 assignment, 4 KL refinement rounds regardless of -t — the reference
 hardcodes refine_clustering(4) at gcluster.cc:457).  ``--fast`` switches
 to the occupancy-weighted k-means++ used by `cli/train.py` (a by-design
-TPU replacement: the clustering only gates evaluation).
+replacement: the clustering only gates evaluation).
 """
 
 from __future__ import annotations

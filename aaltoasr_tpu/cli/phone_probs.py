@@ -45,11 +45,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-I", "--bindex", type=int, default=0,
                    help="batch process index")
     p.add_argument("-i", "--info", type=int, default=0, help="info level")
-    p.add_argument("--fused", action="store_true",
-                   help="score with the gather-free fused TPU kernel "
-                        "(ops/gmm_pallas.py; ~2.7x throughput, deltas "
-                        "below the 2-byte quantization step; plain "
-                        "diagonal GMMs, no -C clustering)")
     return p
 
 
@@ -71,8 +66,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     pp = PhoneProbs(load_model(args), args.config,
                     lna_bytes=args.lnabytes,
-                    normalize=not args.no_normalization,
-                    fused=args.fused)
+                    normalize=not args.no_normalization)
     if args.speakers:
         pp.read_speaker_config(args.speakers)
     if args.clusters:

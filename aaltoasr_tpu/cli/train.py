@@ -12,7 +12,8 @@ reruns skip iterations whose .ph already exists.  Stages:
 3. Viterbi alignment + gamma duration model estimation
 4. Gaussian clustering (.gcl)
 
-Cluster sharding is unnecessary on TPU (the E-step is batched on device),
+Cluster sharding is unnecessary on one card (the E-step is batched on
+device),
 but ``-B/-I`` still shard the recipe for multi-host runs; statistics
 dumps remain reference-compatible for mixed fleets.
 """

@@ -3,8 +3,8 @@
 Reference: `decoder/src/TPNowayLexReader.cc` (format: ``word(prob) ph1
 ph2 ...`` per line, '_' = silence) and `decoder/src/TPLexPrefixTree.
 {hh,cc}` (pointer-based tree of HMM-state nodes with cross-word
-fan-in/fan-out networks).  This build is TPU-first: the tree is compiled
-into dense SoA arrays the batched beam search consumes directly —
+fan-in/fan-out networks).  This build is accelerator-first: the tree is
+compiled into dense SoA arrays the batched beam search consumes directly —
 
 * per node: emission pdf, duration-state id, dense out-arc table
   ``[N, A]`` (in-word arcs: self-loops, forward/skip transitions, phone-
@@ -366,7 +366,7 @@ def _build_crossword_tree(model: HmmModel, entries: list,
     acoustically identical, so they merge (context sets union).  The
     reference builds one node chain per label (`TPLexPrefixTree.cc`
     fan-in/fan-out); a dense searcher pays for every node every frame,
-    so the minimized network is the TPU-correct form.  Decode scores
+    so the minimized network is the right form for it.  Decode scores
     are unchanged: merged variants had identical emission pdfs,
     transitions, and continuations.
     """
@@ -779,8 +779,9 @@ def node_duration_params(tree, model: HmmModel, scale: float) -> dict:
     """Per-node gamma duration parameters so a searcher computes
     bonus = scale*((a-1) ln d - d/b - a ln b - lgamma(a)) elementwise —
     identical values to `duration_table` (same formula, `Hmm.cc:16-39`)
-    with NO per-token table gather in the step (TPU gathers cost ~8 ns
-    per index; the elementwise form is a handful of VPU passes)."""
+    with NO per-token table gather in the step (the elementwise form is a
+    handful of vector passes; the gather's cost on the H100 is not
+    measured)."""
     from scipy.special import gammaln
     N = tree.num_nodes
     valid = np.zeros(N, np.float32)

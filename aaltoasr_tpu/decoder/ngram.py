@@ -2,7 +2,7 @@
 
 Same representation idea as the reference's fsalm (`decoder/src/fsalm/
 LM.{hh,cc}`: n-gram compiled to an FSA whose nodes embed backoff arcs,
-walked with `walk(node, symbol, &score)`), rebuilt for TPU: transitions
+walked with `walk(node, symbol, &score)`), rebuilt for the device: transitions
 live in one array sorted by packed (state, word) key, looked up by
 binary search (a handful of gathers), and backoff hops are unrolled
 ``order`` times with masking — no data-dependent control flow.
@@ -196,7 +196,6 @@ class NGramFsa:
 
     # open-addressed (state, word) -> (next, prob) table: the walk's
     # lookup becomes ~2L gathers instead of a 16-ary search's ~50
-    # (dynamic gathers run at only ~150M elements/s on TPU)
     _HASH_MUL_S = np.uint32(2654435761)
     _HASH_MUL_W = np.uint32(40503)
 
@@ -204,7 +203,7 @@ class NGramFsa:
         """Bucketed hash of the non-root transitions.
 
         Each lookup in the decoder's inner scan is a dynamic gather, and
-        gather cost on TPU is per-INDEX (~10 ns) — so the layout buys
+        a gather costs per INDEX more than per byte — so the layout buys
         ONE index per lookup: buckets of `bucket_slots` (state, word,
         next, prob) slots flattened into one [S_b, 4*L] row (L=8 -> a
         contiguous 128-byte row, one HBM burst).  Every key must land in
@@ -214,9 +213,10 @@ class NGramFsa:
         ~ 2e-4 at mean 2).  The previous linear-probe layout demanded
         all keys within 2 probes, which blew the table up to the 1024*M
         cap — 2^28 rows (4.3 GB) on a 10k-word trigram, where the three
-        per-frame walk gathers were 27% of the production decode step
-        (round-5 profile, benchmarks/bench_exact.py --profile).
-        int32 columns are BITCAST into f32 lanes — gathers are
+        per-frame walk gathers were a large share of the production
+        decode step (`benchmarks/bench_exact.py --profile`; the share on
+        the H100 is not measured).
+        int32 columns are BITCAST into f32 columns — gathers are
         bit-preserving copies, and the bits only flow through
         select/bitcast, never arithmetic (-1 is a NaN pattern)."""
         rows = slice(int(self.state_first[1]), len(self.trans_word))
@@ -286,7 +286,7 @@ def lm_walk_device(tables: dict, num_words: int, order: int, state, word):
         # bucketed (state, word) table: the whole home bucket (keys AND
         # values, L slots x 4 cols) comes back in ONE gather of one
         # contiguous [4L]-wide row — one gather INDEX per lookup, one
-        # HBM burst at L=8 (int32 columns bitcast through f32 lanes,
+        # HBM burst at L=8 (int32 columns bitcast through f32,
         # only touched by select/bitcast).  Keys are unique and always
         # placed in their home bucket, so at most one slot hits.
         hp = tables["hash_packed"]

@@ -6,7 +6,7 @@ when `set_keep_state_segmentation(1)` is on and prints
 (`decoder/src/Toolbox.hh:261-265,334`, `TokenPassSearch.cc:668-680`
 print_state_history; consumed by `pyrectool/recognize-stateseg.py`).
 
-TPU-first design: instead of threading a history chain through the
+Device-first design: instead of threading a history chain through the
 batched search (a per-frame [W]-sized record stack), the decoded word
 sequence is re-aligned with the already-existing hmmnet Viterbi — the
 state path that maximizes the acoustic+transition score for the fixed

@@ -17,7 +17,7 @@ Formats per `aku/doc/fileformats.html` and the reference readers/writers:
   then ``<state> <a> <b>`` per line (`aku/dur_est.cc:126-138`; reader
   `decoder/src/NowayHmmReader.cc:92`, versions 1-4 supported).
 
-The in-memory representation is structure-of-arrays, ready to feed the TPU
+The in-memory representation is structure-of-arrays, ready to feed the device
 scoring kernels (means/covariances as [G, D] NumPy arrays).
 """
 

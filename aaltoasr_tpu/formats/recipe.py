@@ -12,7 +12,7 @@ Each non-empty, non-comment line is a whitespace-separated list of
   to the first ``n % num_batches`` batches; ``cluster_speakers`` delays
   batch boundaries until the speaker changes.  This is the reference's
   data-parallel sharding contract (same split the SLURM/Condor workers get);
-  on TPU the same helper feeds per-device shards of a mesh batch axis.
+  on a device mesh the same helper feeds per-device shards of a mesh batch axis.
 """
 
 from __future__ import annotations

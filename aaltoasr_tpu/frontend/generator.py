@@ -43,12 +43,10 @@ def patches_count(num_samples: int, window_width: int, adv: float) -> int:
 class FeatureGenerator:
     """Compiled feature frontend for one .cfg configuration."""
 
-    def __init__(self, config: FeatureConfig | str,
-                 fused_mfcc: bool = False):
+    def __init__(self, config: FeatureConfig | str):
         if isinstance(config, str):
             config = FeatureConfig.load(config)
         self.config = config
-        self._fused_mfcc = fused_mfcc
 
         base = config.base
         self.base_type = base.type
@@ -108,41 +106,6 @@ class FeatureGenerator:
         self.params = {name: op.init_params() for name, op in self.ops.items()}
         self.params = {k: v for k, v in self.params.items() if v}
 
-        # fused MFCC-core (opt-in): the canonical fft -> {mel -> dct,
-        # power} subgraph can run as ONE pallas kernel
-        # (ops/frontend_pallas.py; the north-star frontend design) —
-        # verified identical to 6e-6 on TPU, but MEASURED ~2% slower
-        # than XLA's own fusion of the same matmul chain (973k vs 991k
-        # frames/s through the scoring pipeline), so the default stays
-        # the unfused ops; pass fused_mfcc=True to use the kernel.
-        self._fusion = self._detect_mfcc_fusion()
-
-    def _detect_mfcc_fusion(self):
-        consumers: dict = {}
-        for spec in self.config.modules[1:]:
-            for s in spec.sources:
-                consumers.setdefault(s, []).append(spec.name)
-        type_of = {spec.name: spec.type
-                   for spec in self.config.modules[1:]}
-        for spec in self.config.modules[1:]:
-            if spec.type != "fft":
-                continue
-            fft = self.ops[spec.name]
-            if getattr(fft, "log", 0):
-                continue
-            cons = consumers.get(spec.name, [])
-            mels = [c for c in cons if type_of.get(c) == "mel"]
-            pows = [c for c in cons if type_of.get(c) == "power"]
-            if len(mels) != 1 or len(cons) != len(mels) + len(pows)                     or len(pows) > 1:
-                continue
-            mel = mels[0]
-            mcons = consumers.get(mel, [])
-            if len(mcons) != 1 or type_of.get(mcons[0]) != "dct":
-                continue
-            return {"fft": spec.name, "mel": mel, "dct": mcons[0],
-                    "power": pows[0] if pows else None}
-        return None
-
     # -- metadata ---------------------------------------------------------
     @property
     def dim(self) -> int:
@@ -173,45 +136,26 @@ class FeatureGenerator:
                 self.set_parameters(name, cfg)
 
     # -- compilation ------------------------------------------------------
-    @functools.lru_cache(maxsize=1)
-    def _frame_kernel(self):
-        """[W, 1, W+1] conv kernel fusing framing with pre-emphasis."""
-        import numpy as np
-        W = self.window_width
-        k = np.zeros((W, 1, W + 1), dtype=np.float32)
-        idx = np.arange(W)
-        k[idx, 0, idx] = -self.pre_emph_coef
-        k[idx, 0, idx + 1] = 1.0
-        return k
-
     def _base_frames(self, samples, n_frames, ext_l, T_pad, ext_r,
                      start: int = 0):
         """Extended framing+pre-emphasis: [-ext_l, T_pad+ext_r) x window.
 
-        Pre-emphasis runs once over the sample stream (out[t,i] =
-        s[ws+i+1] - c*s[ws+i] = pre[ws+i]), then framing is a strided
-        patch extraction — a convolution, the layout TPUs tile natively.
-        (A naive [T, W] gather from the 1-D stream compiles catastrophically
-        slowly on TPU.)  Border frames are a row-gather clamp afterwards.
+        out[t, i] = s[ws+i+1] - c*s[ws+i] for frame start ws: a [T, W+1]
+        gather from the sample stream.  Border frames are a row-gather
+        clamp afterwards.
         """
         W = self.window_width
         adv = self.window_advance
+        n = patches_count(samples.shape[0], W, adv)
         if float(adv).is_integer():
-            # window extraction + pre-emphasis as ONE strided conv:
-            # kernel row w has -coef at tap w and 1 at tap w+1, so
-            # out[t, w] = s[t*adv+w+1] - coef*s[t*adv+w].
-            patches = jax.lax.conv_general_dilated(
-                samples[None, None, :], jnp.asarray(self._frame_kernel()),
-                window_strides=(int(adv),), padding="VALID",
-                precision=jax.lax.Precision.HIGHEST)
-            patches = patches[0].T  # [T_direct, W]
+            ws = jnp.arange(n, dtype=jnp.int32) * int(adv)
         else:
-            # non-integer advance (rare): per-frame start offsets
-            ws = (jnp.arange(patches_count(samples.shape[0], W, adv))
-                  .astype(jnp.float32) * jnp.float32(adv)).astype(jnp.int32)
-            idx = ws[:, None] + jnp.arange(W + 1)[None, :]
-            win = samples[jnp.minimum(idx, samples.shape[0] - 1)]
-            patches = win[:, 1:] - jnp.float32(self.pre_emph_coef) * win[:, :-1]
+            # non-integer advance (rare): float frame starts, truncated
+            ws = (jnp.arange(n).astype(jnp.float32)
+                  * jnp.float32(adv)).astype(jnp.int32)
+        idx = ws[:, None] + jnp.arange(W + 1)[None, :]
+        win = samples[jnp.minimum(idx, samples.shape[0] - 1)]
+        patches = win[:, 1:] - jnp.float32(self.pre_emph_coef) * win[:, :-1]
         t = jnp.arange(start - ext_l, start + T_pad + ext_r)
         t = jnp.clip(t, 0, jnp.maximum(n_frames - 1, 0))  # border copy
         return jnp.take(patches, t, axis=0)
@@ -240,46 +184,9 @@ class FeatureGenerator:
             else:
                 arrays[config.base.name] = self._base_frames(
                     samples, n_frames, bl, T_pad, br, start=start)
-            fusion = self._fusion if (
-                self._fusion is not None and self._fused_mfcc
-                and jax.default_backend() == "tpu") else None
-            fused_skip = (set(fusion.values()) - {None}
-                          if fusion else set())
             for spec in config.modules[1:]:
                 op = ops[spec.name]
                 nl, nr = need[spec.name]
-                if fusion and spec.name == fusion["fft"]:
-                    # one pallas kernel for the whole MFCC core; the
-                    # output stored directly under the dct (and power)
-                    # names, sliced to their own context ranges
-                    from aaltoasr_tpu.ops import frontend_pallas as FP
-                    (src,) = spec.sources
-                    snl, _ = need[src]
-                    off = snl - nl
-                    length = T_pad + nl + nr
-                    frames = arrays[src][off:off + length]
-                    fft_op = ops[fusion["fft"]]
-                    mel_op = ops[fusion["mel"]]
-                    dct_op = ops[fusion["dct"]]
-                    cep, pw = FP.mfcc_core(
-                        frames, jnp.asarray(fft_op.basis),
-                        jnp.asarray(mel_op.weights),
-                        jnp.asarray(dct_op.matrix),
-                        magnitude=bool(fft_op.magnitude),
-                        root=bool(mel_op.root),
-                        with_power=fusion["power"] is not None)
-
-                    def store(name, val):
-                        tnl, tnr = need[name]
-                        o = nl - tnl
-                        arrays[name] = val[o:o + T_pad + tnl + tnr]
-
-                    store(fusion["dct"], cep)
-                    if fusion["power"] is not None:
-                        store(fusion["power"], pw)
-                    continue
-                if spec.name in fused_skip:
-                    continue
                 srcs = []
                 for s in spec.sources:
                     snl, _snr = need[s]

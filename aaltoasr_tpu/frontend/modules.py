@@ -8,8 +8,8 @@ source row ``j + left``.
 
 Numerics follow `aku/FeatureModules.cc` module by module (cited inline);
 the per-frame scalar loops become matmuls (mel, DCT, lin_transform, VTLN)
-and windowed slices (delta, CMS, concat), which is what the TPU MXU/VPU
-want.  Transcendental/log choices (log1p for mel, natural log for power)
+and windowed slices (delta, CMS, concat), which is what an accelerator
+wants.  Transcendental/log choices (log1p for mel, natural log for power)
 match the reference exactly.
 """
 
@@ -22,8 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 
 # Feature matmuls are small and accuracy-sensitive (DCT/mel/lin_transform
-# feed quantized LNA parity checks); force true-f32 MXU passes rather than
-# the TPU default bf16 precision.
+# feed quantized LNA parity checks); force true-f32 products rather than
+# a reduced-precision default (bf16 or TF32).
 _F32 = jax.lax.Precision.HIGHEST
 
 
@@ -62,10 +62,10 @@ class FFTOp(Op):
     """Short-time spectrum as a GEMM-native real DFT.
 
     The reference calls kiss_fftr per frame (FeatureModules.cc:521-535).
-    On TPU the DFT is two MXU matmuls against precomputed cos/sin bases
+    Here the DFT is two matmuls against precomputed cos/sin bases
     with the Hamming window folded into the basis — one fused
     ``[T, N] @ [N, 2*(N/2+1)]`` op, no FFT primitive needed.  For the
-    standard N=256 window this is ~130k MACs/frame: noise on the MXU, and
+    standard N=256 window this is ~130k MACs/frame, which is little, and
     it keeps the op available on every backend.
     """
 

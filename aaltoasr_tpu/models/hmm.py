@@ -2,7 +2,7 @@
 
 The reference threads HMM topology through pointer-rich C++ objects
 (`aku/HmmSet.hh:22-81`: Hmm/HmmState/HmmTransition with relative target
-offsets).  For TPU scans everything becomes flat arrays:
+offsets).  For device scans everything becomes flat arrays:
 
 * `TransitionTable` — the model's tied-state transitions flattened into
   parallel arrays with stable slot numbering (state-major, file order),
@@ -179,7 +179,7 @@ def pad_chain(chain: LinearChain, pad_positions: int, fan: int = 0):
 
     A dense [P, F] layout (F = max fan-in, typically 2-3 for left-to-right
     HMMs) turns the lattice reduction into gather + small-axis reductions —
-    no scatter in the inner scan, which is what the TPU wants.
+    no scatter in the inner scan.
     """
     P, E = chain.num_positions, chain.num_edges
     if P > pad_positions:

@@ -2,7 +2,7 @@
 
 The reference runs beam-pruned backward/forward directly over the FST
 with in-frame epsilon propagation (`aku/HmmNetBaumWelch.cc:817-1200`).
-The TPU compile eliminates epsilons up front:
+The device compile eliminates epsilons up front:
 
 * positions = emitting arcs (arc-synchronous/Mealy form);
 * an edge p -> q exists when q's source node is epsilon-reachable from

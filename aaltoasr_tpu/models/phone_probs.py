@@ -32,22 +32,12 @@ class PhoneProbs:
     """Feature + GMM scoring pipeline for LNA generation."""
 
     def __init__(self, model: HmmModel | str, config: FeatureConfig | str,
-                 lna_bytes: int = 2, normalize: bool = True,
-                 fused: bool = False):
-        """fused=True scores states with the gather-free Pallas kernel
-        (`ops/gmm_pallas.py`, ~2.7x scoring throughput on TPU; differs
-        from the byte-exact path only by logsumexp reduction order,
-        under the 2-byte quantization step).  Plain diagonal GMMs only;
-        incompatible with clustering and model-space CMLLR."""
+                 lna_bytes: int = 2, normalize: bool = True):
         if isinstance(model, str):
             model = read_model(model)
         self.model = model
         self.fg = FeatureGenerator(config)
         self.scorer = GmmScorer.from_model(model)
-        self.fused_scorer = None
-        if fused:
-            from aaltoasr_tpu.ops.gmm_pallas import FusedGmmScorer
-            self.fused_scorer = FusedGmmScorer.from_scorer(self.scorer)
         if model.dim != self.fg.dim:
             raise ValueError(
                 f"Gaussian dimension is {model.dim} but feature dimension "
@@ -64,9 +54,6 @@ class PhoneProbs:
         """Gaussian clustering for gated evaluation (phone_probs -C,
         `aku/phone_probs.cc:112-117`)."""
         from aaltoasr_tpu.train.gcluster import read_gcl
-        if self.fused_scorer is not None:
-            raise ValueError("fused scoring does not support "
-                             "cluster-gated evaluation")
         assign, C = read_gcl(path)
         self.scorer = self.scorer.with_clustering(
             self.model, assign, C, eval_minc, eval_ming)
@@ -104,9 +91,6 @@ class PhoneProbs:
             Ws.append(np.concatenate([b[:, None], A], axis=1))
         cls = np.asarray(cfg.get_float_vec("gauss_class"),
                          dtype=np.int64)
-        if self.fused_scorer is not None:
-            raise ValueError("fused scoring does not support "
-                             "model-space CMLLR (full-cov rebuild)")
         adapted = apply_model_cmllr(self.model, Ws, cls)
         self.scorer = GmmScorer.from_model(adapted)
         type(self)._program.cache_clear()
@@ -121,7 +105,7 @@ class PhoneProbs:
     @functools.lru_cache(maxsize=None)
     def _program(self, padded_len: int, quantize: bool):
         feature_fn = self.fg._compiled(padded_len)
-        scorer = self.fused_scorer or self.scorer
+        scorer = self.scorer
         normalize = self.normalize
 
         def fn(samples, n_frames, params):
@@ -141,7 +125,7 @@ class PhoneProbs:
         """Unnormalized state log-likelihoods (normalization epilogue
         runs on host, see log_probs)."""
         feature_fn = self.fg._compiled(padded_len)
-        scorer = self.fused_scorer or self.scorer
+        scorer = self.scorer
 
         def fn(samples, n_frames, params):
             feats = feature_fn(samples, n_frames, params)

@@ -1,8 +1,10 @@
 """Native host runtime: C++ LNA codec and audio decoding via ctypes.
 
 Builds `libaaltoasr_native.so` from aaltoasr_native.cpp on first use
-(cached next to the source); every entry point has a NumPy fallback so
-the package works without a compiler.
+(next to the source; the library is not kept in git).  The build writes
+a temporary file and renames it into place, so concurrent processes
+never load a half-written library.  Every entry point has a NumPy
+fallback, so the package works without a compiler.
 """
 
 from __future__ import annotations
@@ -22,15 +24,20 @@ _lib = None
 
 
 def _build() -> bool:
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-o", _SO, _SRC],
+            ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
             check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
         return True
     except Exception as e:  # pragma: no cover - toolchain issues
         print(f"aaltoasr_native: build failed ({e}); using NumPy "
               "fallbacks", file=sys.stderr)
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def get_lib():

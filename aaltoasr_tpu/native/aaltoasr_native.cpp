@@ -1,6 +1,6 @@
 // Native host runtime for aaltoasr_tpu: LNA codec + audio decode.
 //
-// The reference implements its whole runtime in C++; here the TPU does the
+// The reference implements its whole runtime in C++; here the device does the
 // math and the native layer owns the byte-level host paths that feed it:
 // LNA quantization/dequantization (aku/PhoneProbsToolbox.cc:106-124 and
 // decoder/src/LnaReaderCircular.cc:170-196 semantics, bit-exact) and RIFF

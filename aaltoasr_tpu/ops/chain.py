@@ -4,7 +4,7 @@ The reference fills an explicit (frame x position) lattice with windowing
 (`aku/Viterbi.cc:356` fill, `:296` compute_best_path) and runs beam-pruned
 backward/forward passes over hmmnet FSTs (`aku/HmmNetBaumWelch.cc:817,
 1079`).  Here both are dense `lax.scan`s over the padded fan-in tables from
-`models.hmm.pad_chain`: no beams needed on TPU (the whole [T, P] lattice is
+`models.hmm.pad_chain`: no beams needed on device (the whole [T, P] lattice is
 a few MB and the scan step is gather + small-axis reduction), no windowing
 (HBM holds the full lattice; chunking only matters for hour-long audio).
 
@@ -159,10 +159,10 @@ def forward_assoc_chain(obs_pos, graph, trans_dense=None):
     under a mesh and the prefix tree composes across chips with
     collectives.
 
-    Cost: O(T P^3) FLOPs vs the sequential scan's O(T P^2) — measured
-    unprofitable on ONE chip at LVCSR sizes (P >= 512); use it when a
-    single utterance must span devices (hour-scale audio) or P is
-    small.  Returns (alphas [T, P], total log-likelihood).
+    Cost: O(T P^3) FLOPs vs the sequential scan's O(T P^2) — P times
+    the work, so unprofitable on ONE card at LVCSR sizes (P >= 512);
+    use it when a single utterance must span devices (hour-scale
+    audio) or P is small.  Returns (alphas [T, P], total log-likelihood).
     """
     T, P = obs_pos.shape
     if trans_dense is None:

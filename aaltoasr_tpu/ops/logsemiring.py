@@ -3,7 +3,7 @@
 The reference's scalar helpers (`aku/util.hh:111-139` logadd/safe_log,
 `aku/HmmNetBaumWelch.hh:99-105` log-semiring ops) become vectorized masked
 reductions.  ``LOG_ZERO`` plays the role of the reference's -inf sentinel
-but stays finite so that TPU float32 arithmetic never produces NaNs from
+but stays finite so that float32 arithmetic never produces NaNs from
 (-inf) - (-inf).
 """
 

@@ -32,8 +32,8 @@ term behind a stray ';', and SubspaceConstrainedGaussian::read
 (Distributions.cc:1890-1910) misses the 0.5 factor of K.  We score with
 the exact Gaussian log-density the optimization itself uses.
 
-TPU mapping: scoring stays FACTORED — scores = bias + phi(x) @ M
-+ (phi(x) @ basis) @ Lambda, two MXU matmuls through the shared
+Device mapping: scoring stays FACTORED — scores = bias + phi(x) @ M
++ (phi(x) @ basis) @ Lambda, two matmuls through the shared
 [D_phi, B] basis instead of materializing per-Gaussian precisions;
 that compression is the entire point of subspace models.  Basis
 initialization (weighted PCA, Subspaces.cc:22-126 / 1010-1171) and
@@ -479,7 +479,7 @@ def _fmt(x: float) -> str:
 
 
 # ---------------------------------------------------------------------------
-# factored TPU scoring tables
+# factored device scoring tables
 # ---------------------------------------------------------------------------
 
 def pcgmm_tables(ps: PrecisionSubspace, params: dict, dim: int,

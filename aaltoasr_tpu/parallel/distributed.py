@@ -2,18 +2,14 @@
 
 The reference scales over hosts with scheduler job arrays and a shared
 filesystem (`submit-to-slurm.sh`, `ClusterManager.pm:42-115`,
-`combine_stats` epilogs).  The TPU-native replacement is one SPMD
-program spanning every host's chips: each host runs the same script,
-calls :func:`initialize` once, and builds meshes over
-``jax.devices()`` (which then lists ALL chips in the slice).  The
-`psum` inside `sharded_train_step` rides ICI/DCN instead of .gks files.
+`combine_stats` epilogs).  Here it is one SPMD program spanning every
+host's cards: each host runs the same script, calls :func:`initialize`
+once, and builds meshes over ``jax.devices()`` (which then lists every
+card of every host).  The `psum` inside `sharded_train_step` crosses
+the interconnect instead of .gks files.
 
-Launch recipe (one command per host)::
+Launch recipe (one command per host; the topology is always explicit)::
 
-    # TPU pods: the runtime supplies topology; no arguments needed
-    python train.py ...                 # initialize() auto-detects
-
-    # CPU/GPU clusters or manual setup: pass or export the topology
     JAX_COORDINATOR_ADDRESS=host0:1234 JAX_NUM_PROCESSES=4 \\
       JAX_PROCESS_ID=$SLURM_PROCID python train.py ...
 
@@ -35,10 +31,9 @@ def initialize(coordinator_address: str | None = None,
 
     Arguments default from the environment (JAX_COORDINATOR_ADDRESS,
     JAX_NUM_PROCESSES, JAX_PROCESS_ID; SLURM_PROCID is used for the
-    process id when present).  On TPU pods all three may be None and
-    the runtime supplies the topology.  Returns True when distributed
-    mode was initialized, False for a single-process run (no
-    coordinator configured and only local devices visible).
+    process id when present).  Returns True when distributed mode was
+    initialized, False for a single-process run (no coordinator and no
+    process count configured).
     """
     coordinator_address = (coordinator_address
                            or os.environ.get("JAX_COORDINATOR_ADDRESS"))
@@ -51,11 +46,6 @@ def initialize(coordinator_address: str | None = None,
         process_id = int(env) if env else None
 
     if coordinator_address is None and num_processes is None:
-        # TPU pod runtimes self-describe; initialize() is still correct
-        # there, but for plain single-host runs it is a no-op
-        if os.environ.get("TPU_WORKER_HOSTNAMES"):
-            jax.distributed.initialize()
-            return True
         return False
 
     jax.distributed.initialize(

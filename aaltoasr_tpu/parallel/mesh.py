@@ -2,11 +2,11 @@
 
 The reference's only parallelism is utterance sharding over a batch
 cluster with file-based reduce (`aku/Recipe.hh:97-112` shard split,
-`combine_stats` + scheduler epilogs, `train.pl:373-392`).  The TPU-native
-replacement is one SPMD program over a device mesh:
+`combine_stats` + scheduler epilogs, `train.pl:373-392`).  The replacement
+here is one SPMD program over a device mesh:
 
 * **data axis**: utterances of a padded batch are sharded; sufficient
-  statistics are `psum`-reduced across it — the in-ICI analog of the
+  statistics are `psum`-reduced across it — the on-interconnect analog of the
   .gks/.mcs dump + combine_stats files.
 * **model axis**: the Gaussian pool is sharded along G for the scoring
   matmul; per-Gaussian log-likelihoods are `all_gather`ed (mixtures mix
@@ -142,7 +142,7 @@ def sharded_train_step(mesh: Mesh, num_trans_slots: int,
     def step(params, features, graph, n_frames):
         local = _estep_local(params, features, graph, n_frames,
                              num_trans_slots)
-        # reduce utterance shards (the combine_stats analog, on ICI)
+        # reduce utterance shards (the combine_stats analog)
         local = jax.lax.psum(local, "data")
         ll = local.pop("ll")
         # Gaussian stats arrive replicated over 'model' (all_gather'ed gll

@@ -248,7 +248,7 @@ class EStepDriver:
     def run_recipe_batched(self, recipe: Recipe, batch_size: int = 8,
                            info: int = 0) -> HmmStats:
         """Batched ML E-step: utterances bucketed by padded shape, each
-        bucket vmapped into one device call (the TPU replacement for
+        bucket vmapped into one device call (the device replacement for
         running `stats` workers in parallel)."""
         total = HmmStats.zeros(self.model, self.table)
         buckets: dict = {}

@@ -471,8 +471,8 @@ def batch_chain_stats(scorer, features, graphs, n_frames,
 # ---------------------------------------------------------------------------
 # shift-compiled forward-backward: positions are numbered phone-locally,
 # so nearly every edge has target - source in {0, 1, 2}; those relax as
-# array shifts (pure elementwise steps — TPU dynamic gathers run at only
-# ~150M elements/s, which otherwise bounds the whole E-step).  Remaining
+# array shifts (pure elementwise steps instead of dynamic gathers, which
+# otherwise bound the whole E-step).  Remaining
 # edges form a compact irregular list handled by one small gather +
 # scatter-logsumexp per step.
 # ---------------------------------------------------------------------------

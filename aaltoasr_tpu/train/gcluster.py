@@ -7,7 +7,7 @@ clusters (`decode-stream.cc:113-117`, eval-ming).
 
 The reference clusters agglomeratively with KL criteria; here a weighted
 k-means over pool means (occupancy-weighted, KL-insensitive init) gives
-the same artifact at a fraction of the cost — on TPU the clustering only
+the same artifact at a fraction of the cost — on device the clustering only
 gates work, it does not change results.
 """
 

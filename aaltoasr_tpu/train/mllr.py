@@ -11,7 +11,7 @@ with extended features ``xi = [1; x]``.  The transform solves the
 constrained-MLLR objective by Gales' row iteration with the cofactor
 alpha quadratic (MllrTrainer.cc:166-253; 20*dim rounds).
 
-TPU mapping: frame x Gaussian posteriors never materialize — the class/
+Device mapping: frame x Gaussian posteriors never materialize — the class/
 dimension weights fold into two matmuls over the responsibility matrix
 (R [T, P*K] from the E-step), giving G as a stack of small
 weighted-Gram matrices.  The solve itself is tiny host NumPy.
@@ -237,7 +237,7 @@ def apply_model_cmllr(model, transforms: list, gauss_class) -> "HmmModel":
     their class's transformed feature A_c x + b_c with a +log|det A_c|
     constant).
 
-    The TPU form needs no per-frame branching: evaluating a diagonal
+    The device form needs no per-frame branching: evaluating a diagonal
     Gaussian on A x + b is exactly a full-covariance Gaussian in x —
     precision A' diag(p) A, mean A^-1 (mu - b) — and our scorer's
     constant 0.5*log det(precision) reproduces log|det A| +

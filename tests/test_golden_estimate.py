@@ -1,7 +1,7 @@
 """M-step golden parity vs the reference `estimate` binary
 (`aku/estimate.cc:108-430`, built offline by tools/build_aku.sh).
 
-Closes the EM loop across implementations: the round-3 suite proved the
+Closes the EM loop across implementations: the stats suite proves the
 E-step (align/stats dumps, test_golden_stats.py); here BOTH M-steps
 consume the SAME reference-produced statistics dumps and the resulting
 models (.gk means/covars, .mc mixture weights, .ph transitions) are

@@ -2,7 +2,7 @@
 word lexicon, dozens of noisy LNAs, LM lookahead enabled on BOTH
 engines, plus word-graph (SLF) parity.
 
-Checks, per VERDICT round-2 item 3:
+Checks:
   (a) 1-best agreement >= 95% across the battery with lookahead on
       (reference: Toolbox::read_lookahead_ngram `Toolbox.hh:74`,
       TokenPassSearch::get_lm_lookahead_score; ours
@@ -208,7 +208,7 @@ class TestGoldenLatticeBattery:
 
     def test_nbest_scores_and_oracle_parity(self, ref_driver, tmp_path):
         """N-best LIST + score parity and oracle-WER between the two
-        implementations' lattices (round-3 VERDICT #5): both SLFs are
+        implementations' lattices: both SLFs are
         run through the same exact A* extractor; rank-1 must equal each
         engine's 1-best, the top-5 sets must overlap, common sequences
         must score identically (same quantized LNA, same scales), and

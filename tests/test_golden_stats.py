@@ -2,7 +2,7 @@
 offline against the stub libsndfile + mini-lapackpp in tools/aku_stub
 (tools/build_aku.sh; the reference's own CMake needs network access).
 
-Pipeline under test (the round-2 VERDICT's #6):
+Pipeline under test:
   reference `align` (Viterbi.cc forced alignment) -> state-segmented
   phns -> reference `stats --ml -t -O` dumps vs our
   `aalto-stats -O` (`train/driver.py run_recipe_aligned`) on the SAME

@@ -1,6 +1,6 @@
 """Golden parity for the remaining aku tools: dur_est, feanorm, segfea,
 lda, gcluster — each compared against the reference binary built offline
-by tools/build_aku.sh on a shared synthetic corpus (round-4 VERDICT #9).
+by tools/build_aku.sh on a shared synthetic corpus.
 
 Anchors:
 * dur_est: gamma duration ML fit (`aku/dur_est.cc:56-140`) — byte-equal

@@ -1,6 +1,5 @@
 """Mini train.pl trajectory golden: the composed EM recipe vs the same
-iteration schedule driven through the reference binaries (round-4
-VERDICT #6).
+iteration schedule driven through the reference binaries.
 
 Schedule (the train.pl shape at miniature scale, hmmnet mode — the
 reference default `train.pl:42 USE_HMMNETS=1`): 3 EM iterations over

@@ -65,3 +65,19 @@ class TestWav:
         samples, rate = native.wav_read(str(p))
         assert rate == 8000
         np.testing.assert_allclose(samples, [150.0, 100.0, 5.0])
+
+
+class TestBuild:
+    def test_build_lands_by_rename(self, tmp_path, monkeypatch):
+        """The library is built into a temporary name and renamed into
+        place, so parallel workers never load a partial file."""
+        import ctypes
+        import shutil
+        if shutil.which("g++") is None:
+            pytest.skip("no C++ compiler")
+        so = tmp_path / "libaaltoasr_native.so"
+        monkeypatch.setattr(native, "_SO", str(so))
+        assert native._build()
+        assert so.exists()
+        assert not list(tmp_path.glob("*.tmp"))
+        assert ctypes.CDLL(str(so)).lna_encode_u16 is not None

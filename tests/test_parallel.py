@@ -129,8 +129,7 @@ class TestDistributed:
     def test_initialize_single_process_noop(self, monkeypatch):
         from aaltoasr_tpu.parallel import distributed
         for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
-                    "JAX_PROCESS_ID", "SLURM_PROCID",
-                    "TPU_WORKER_HOSTNAMES"):
+                    "JAX_PROCESS_ID", "SLURM_PROCID"):
             monkeypatch.delenv(var, raising=False)
         called = []
         monkeypatch.setattr(jax.distributed, "initialize",

@@ -225,7 +225,7 @@ class TestPruningKnobs:
 
 class TestObsComposeParity:
     """obs_compose=1 (the large-tree composition mode, incl. the
-    round-5 dedup two-step gathers: pdf_tri / pdf_over_u / re-entry
+    dedup two-step gathers: pdf_tri / pdf_over_u / re-entry
     row tables) must decode bit-identically to the default
     shared-index mode — the restructurings select the same elements,
     so words AND scores must match."""
